@@ -1,11 +1,9 @@
-"""Environment-map recovery at megakernel speed (deferred-table training).
+"""Environment-map recovery (table-parameter training).
 
-Renders a target image of the two analytic spheres + a mesh under a known
-HDRI, then recovers the environment map from a flat initial guess with
-adam.  The forward pass runs the fused mesh-scene Pallas megakernel where
-supported (render/pallas_mesh.py); the env map is a DEFERRED table, so the
-backward pass is only the XLA epilogue's gathers — no differentiable
-re-render (parallel/sharding.py ``sharded_deferred_opt_step``).
+Renders a target image of the two analytic spheres under a known HDRI, then
+recovers the environment map from a flat initial guess with adam through
+the differentiable wavefront (parallel/sharding.py
+``sharded_deferred_opt_step``).
 
     python examples/envmap_recovery.py --steps 80 --out env.png
 """
@@ -36,15 +34,15 @@ def main():
     import numpy as np
     import optax
 
-    from vrenderer_pathtracer_tpu.config import RenderSettings
-    from vrenderer_pathtracer_tpu.core.camera import (
+    from vrenderer_pathtracer.config import RenderSettings
+    from vrenderer_pathtracer.core.camera import (
         Camera, generate_rays, pixel_ids)
-    from vrenderer_pathtracer_tpu.parallel.sharding import (
+    from vrenderer_pathtracer.parallel.sharding import (
         DeferredParams, make_render_mesh, replicate, shard_pixels,
         sharded_deferred_opt_step)
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
-    from vrenderer_pathtracer_tpu.scene.scene import Scene, settings_for_scene
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.render.integrator import render_pass
+    from vrenderer_pathtracer.scene.scene import Scene, settings_for_scene
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
     rng = np.random.default_rng(0)
     eh, ew = args.env
@@ -72,7 +70,7 @@ def main():
 
     ray_o, ray_d = generate_rays(cam, args.size, args.size)
     target_rgb, _ = render_pass(
-        scene, settings.replace(radiance_kernel="xla"), ray_o, ray_d,
+        scene, settings, ray_o, ray_d,
         pixel_ids(args.size, args.size), jnp.uint32(1), jnp.float32(0.1),
         jnp.float32(3.0))
     target = shard_pixels(mesh, target_rgb)
@@ -97,8 +95,7 @@ def main():
     jax.block_until_ready(params)
     dt = time.perf_counter() - t0
     print(f"{args.steps} steps in {dt:.1f}s "
-          f"({dt / args.steps * 1e3:.1f} ms/step, backend="
-          f"{settings.radiance_kernel})")
+          f"({dt / args.steps * 1e3:.1f} ms/step)")
 
     got = np.asarray(params.hdr)
     err = np.abs(got - np.asarray(hdr_true))
@@ -110,11 +107,11 @@ def main():
           f"final loss {float(metrics['loss']):.6f}")
 
     if args.out:
-        from PIL import Image
+        from vrenderer_pathtracer.io import save_png
 
         disp = np.clip(got / max(truth.max(), 1e-6), 0, 1) ** (1 / 2.2)
-        Image.fromarray((disp * 255).astype(np.uint8)).resize(
-            (ew * 8, eh * 8), Image.NEAREST).save(args.out)
+        save_png(args.out, np.repeat(np.repeat(disp, 8, 0), 8, 1),
+                 flip_y=False)
         print("wrote", args.out)
 
 

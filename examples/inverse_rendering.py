@@ -8,7 +8,7 @@ full path tracer (detached-hit convention for discrete events, ratio-trick
 score gradients through the Fresnel branch; see README "Differentiable
 end-to-end").
 
-Runs on one chip or a device mesh (tiles x samples `shard_map`); each SGD
+Runs on one device or a device mesh (tiles x samples `shard_map`); each SGD
 step renders a fresh sample batch (frame id advances), so the optimizer
 sees unbiased gradient estimates rather than one fixed noise realisation.
 
@@ -39,14 +39,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from vrenderer_pathtracer_tpu.config import RenderSettings
-    from vrenderer_pathtracer_tpu.core.camera import Camera
-    from vrenderer_pathtracer_tpu.parallel.sharding import (
+    from vrenderer_pathtracer.config import RenderSettings
+    from vrenderer_pathtracer.core.camera import Camera
+    from vrenderer_pathtracer.parallel.sharding import (
         TrainParams, make_render_mesh, replicate, shard_pixels,
         sharded_opt_step, sharded_render_step,
     )
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
-    from vrenderer_pathtracer_tpu.utils.metrics import MetricsLogger
+    from vrenderer_pathtracer.scene.scene import Scene
+    from vrenderer_pathtracer.utils.metrics import MetricsLogger
 
     settings = RenderSettings(
         width=args.size, height=args.size, samples_per_pass=args.spp,
@@ -122,7 +122,7 @@ def main():
     # Individually unobservable parameters (the light sphere's albedo
     # under its own emission) may drift — the image defines what is
     # recoverable.
-    from vrenderer_pathtracer_tpu.parallel.sharding import _apply_params
+    from vrenderer_pathtracer.parallel.sharding import _apply_params
 
     got = jax.device_get(params)
 
@@ -142,8 +142,8 @@ def main():
           file=sys.stderr)
 
     if args.out:
-        from vrenderer_pathtracer_tpu.io import save_png
-        from vrenderer_pathtracer_tpu.parallel.sharding import _apply_params
+        from vrenderer_pathtracer.io import save_png
+        from vrenderer_pathtracer.parallel.sharding import _apply_params
 
         accum = accum0
         # Render with the recovered parameters for a visual check.
@@ -153,7 +153,8 @@ def main():
             accum, img, _ = rset(
                 scene_rec, camera, accum, jnp.uint32(1 + i),
                 got.fresnel_coef, got.fresnel_pow)
-        save_png(args.out, np.asarray(img))
+        save_png(args.out,
+                 np.asarray(img).reshape(settings.height, settings.width, 3))
         print(f"wrote {args.out}", file=sys.stderr)
 
 

@@ -13,12 +13,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.ops.brdf import (
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.ops.brdf import (
     RES_PHI_D, RES_THETA_D, RES_THETA_H, TABLE_SIZE, lookup_brdf)
-from vrenderer_pathtracer_tpu.ops.brdf_sampling import (
+from vrenderer_pathtracer.ops.brdf_sampling import (
     build_merl_sampler, pdf_cosine, pdf_lobe, sample_brdf_mis, sample_lobe)
-from vrenderer_pathtracer_tpu.ops.shading import cosine_hemisphere
+from vrenderer_pathtracer.ops.shading import cosine_hemisphere
 
 
 def glossy_table(width=0.08, amp=3000.0, floor=2.0):
@@ -120,8 +120,8 @@ def test_mis_variance_reduction_glossy():
 
 
 def _render_once(scene, settings, frame):
-    from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
+    from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+    from vrenderer_pathtracer.render.integrator import render_pass
 
     cam = Camera.default()
     o, d = generate_rays(cam, settings.width, settings.height)
@@ -132,8 +132,8 @@ def _render_once(scene, settings, frame):
 
 
 def _merl_scene(table):
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.scene.scene import Scene
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
     rng = np.random.default_rng(4)
     hdr = jnp.asarray(rng.uniform(0.0, 2.0, (32, 64, 3)).astype(np.float32))

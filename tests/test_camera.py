@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays
+from vrenderer_pathtracer.core.camera import Camera, generate_rays
 from tests import reference_tracer as ref
 
 

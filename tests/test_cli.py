@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.cli import main
+from vrenderer_pathtracer.cli import main
 
 
 def test_render_cornell_outputs(tmp_path):
@@ -24,7 +24,7 @@ def test_render_cornell_outputs(tmp_path):
     assert img.shape == (32, 32, 3)
     assert img.mean() > 10  # lit scene
 
-    from vrenderer_pathtracer_tpu.native import load_exr
+    from vrenderer_pathtracer.native import load_exr
 
     linear = load_exr(str(exr))
     assert linear.shape == (32, 32, 3)

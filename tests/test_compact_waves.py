@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import pytest
 
 from tests.test_mesh_render import write_uv_sphere
-from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-from vrenderer_pathtracer_tpu.native import load_obj
-from vrenderer_pathtracer_tpu.render.integrator import render_pass
-from vrenderer_pathtracer_tpu.scene.scene import Scene, settings_for_scene
-from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+from vrenderer_pathtracer.accel.mesh import pack_mesh
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+from vrenderer_pathtracer.native import load_obj
+from vrenderer_pathtracer.render.integrator import render_pass
+from vrenderer_pathtracer.scene.scene import Scene, settings_for_scene
+from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +130,7 @@ def test_renderer_forces_compact_after_measured_first_pass(tmp_path):
     the (pass-invariant) primary hit count and hard-wires the compact
     chain; accumulation stays consistent with a never-compacted renderer,
     and any camera change reverts to the safe cond mode."""
-    from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+    from vrenderer_pathtracer import Renderer, RenderSettings
 
     p = tmp_path / "s.obj"
     write_uv_sphere(str(p), radius=10.0, n_theta=16, n_phi=16)

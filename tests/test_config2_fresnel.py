@@ -13,7 +13,7 @@ import jax.numpy as jnp
 
 from tests import reference_tracer as ref
 from tests.test_golden_cornell import _compare
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+from vrenderer_pathtracer import Renderer, RenderSettings
 
 
 def test_fresnel_params_and_camera_match_reference():
@@ -52,16 +52,16 @@ def test_depth_channel_scale():
 
 def test_inverse_rendering_recovers_emission():
     """SGD through the renderer pulls emission toward a brighter target."""
-    from vrenderer_pathtracer_tpu.core.camera import generate_rays, pixel_ids
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
+    from vrenderer_pathtracer.core.camera import generate_rays, pixel_ids
+    from vrenderer_pathtracer.render.integrator import render_pass
+    from vrenderer_pathtracer.scene.scene import Scene
 
     settings = RenderSettings(
         width=24, height=24, use_cornell_box=True, bounces=2,
         samples_per_pass=4, has_hdr=False,
     )
     scene = Scene.analytic(settings)
-    from vrenderer_pathtracer_tpu.core.camera import Camera
+    from vrenderer_pathtracer.core.camera import Camera
 
     cam = Camera.default()
     ray_o, ray_d = generate_rays(cam, settings.width, settings.height)

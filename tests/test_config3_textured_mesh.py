@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import pytest
 
 from tests.test_mesh_render import write_uv_sphere
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+from vrenderer_pathtracer import Renderer, RenderSettings
 
 SETTINGS = RenderSettings(
     use_cornell_box=True, has_hdr=False, samples_per_pass=4, bounces=2
@@ -55,21 +55,30 @@ def test_diffuse_map_colors_mesh(sphere_obj):
     assert abs(cp[0] - cp[1]) < 0.1 * cp[0]  # plain mesh is neutral
 
 
-def test_captured_attrs_wavefront_parity(sphere_obj):
-    """The forward-only captured-attrs path (win-time kernel attributes,
-    settings.captured_attrs) matches the gather+recompute wavefront on a
-    normal+specular-mapped mesh scene under the usual cross-program
-    outlier contract (interpret-mode Pallas traversal on CPU)."""
-    import jax
+def _interpreted_kernel(monkeypatch):
+    """Route traversal="triton" to the kernel in interpret mode (CPU)."""
+    import functools
 
-    from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-    from vrenderer_pathtracer_tpu.core.camera import (
+    from vrenderer_pathtracer.accel import triton_traverse
+
+    monkeypatch.setattr(
+        triton_traverse, "traverse_triton",
+        functools.partial(triton_traverse.traverse_triton, interpret=True))
+
+
+def test_captured_attrs_wavefront_parity(sphere_obj, monkeypatch):
+    """The wavefront with the Triton traversal kernel matches the XLA
+    traversal on a diffuse+normal+specular-mapped mesh scene under the usual
+    cross-program outlier contract (kernel in interpret mode on CPU)."""
+    from vrenderer_pathtracer.accel.mesh import pack_mesh
+    from vrenderer_pathtracer.core.camera import (
         Camera, generate_rays, pixel_ids)
-    from vrenderer_pathtracer_tpu.native import load_obj
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.native import load_obj
+    from vrenderer_pathtracer.render.integrator import render_pass
+    from vrenderer_pathtracer.scene.scene import Scene
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
+    _interpreted_kernel(monkeypatch)
     rng = np.random.default_rng(9)
     nmap = jnp.asarray((rng.uniform(0, 1, (16, 16, 3)) * 0.3
                         + (0.35, 0.35, 0.7)).astype(np.float32))
@@ -80,32 +89,33 @@ def test_captured_attrs_wavefront_parity(sphere_obj):
                   diffuse_map=dmap, normal_map=nmap, specular_map=smap)
     settings = SETTINGS.replace(
         width=32, height=32, has_mesh=True, has_diffuse_map=True,
-        has_normal_map=True, has_specular_map=True,
-        traversal="pallas_interpret")
+        has_normal_map=True, has_specular_map=True)
     cam = Camera.default()
     ro, rd = generate_rays(cam, 32, 32)
     ids = pixel_ids(32, 32)
     args = (jnp.uint32(1), jnp.float32(0.1), jnp.float32(3.0))
-    rgb_a, dep_a = render_pass(scene, settings, ro, rd, ids, *args)
-    rgb_b, dep_b = render_pass(
-        scene, settings.replace(captured_attrs=True), ro, rd, ids, *args)
+    rgb_a, dep_a = render_pass(scene, settings.replace(traversal="xla"),
+                               ro, rd, ids, *args)
+    rgb_b, dep_b = render_pass(scene, settings.replace(traversal="triton"),
+                               ro, rd, ids, *args)
     d = np.abs(np.asarray(rgb_a) - np.asarray(rgb_b)).max(axis=-1)
     assert (d > 1e-3).mean() <= 0.02, f"{(d > 1e-3).mean():.3%} diverge"
     assert d[d <= 1e-3].mean() <= 1e-4
 
 
-def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj):
-    """render_pass with Pallas traversal (which now hoists the tile remap
-    to once per pass, settings.pre_tiled) matches the XLA-traversal
-    render under the usual cross-program bounds."""
-    from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-    from vrenderer_pathtracer_tpu.core.camera import (
+def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj, monkeypatch):
+    """render_pass with the Triton traversal kernel matches the
+    XLA-traversal render on a normal-mapped mesh under the usual
+    cross-program bounds (kernel in interpret mode on CPU)."""
+    from vrenderer_pathtracer.accel.mesh import pack_mesh
+    from vrenderer_pathtracer.core.camera import (
         Camera, generate_rays, pixel_ids)
-    from vrenderer_pathtracer_tpu.native import load_obj
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.native import load_obj
+    from vrenderer_pathtracer.render.integrator import render_pass
+    from vrenderer_pathtracer.scene.scene import Scene
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
+    _interpreted_kernel(monkeypatch)
     rng = np.random.default_rng(5)
     nmap = jnp.asarray((rng.uniform(0, 1, (16, 16, 3)) * 0.3
                         + (0.35, 0.35, 0.7)).astype(np.float32))
@@ -113,7 +123,7 @@ def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj):
     scene = Scene(spheres=build_sphere_set(True), mesh=mesh,
                   normal_map=nmap)
     base = SETTINGS.replace(width=32, height=32, has_mesh=True,
-                            has_normal_map=True,  # the pre_tile gate
+                            has_normal_map=True,
                             samples_per_pass=2, bounces=2)
     cam = Camera.default()
     ro, rd = generate_rays(cam, 32, 32)
@@ -121,9 +131,8 @@ def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj):
     args = (jnp.uint32(1), jnp.float32(0.1), jnp.float32(3.0))
     rgb_x, dep_x = render_pass(scene, base.replace(traversal="xla"),
                                ro, rd, ids, *args)
-    rgb_p, dep_p = render_pass(
-        scene, base.replace(traversal="pallas_interpret"),
-        ro, rd, ids, *args)
+    rgb_p, dep_p = render_pass(scene, base.replace(traversal="triton"),
+                               ro, rd, ids, *args)
     d = np.abs(np.asarray(rgb_x) - np.asarray(rgb_p)).max(axis=-1)
     assert (d > 1e-3).mean() <= 0.02, f"{(d > 1e-3).mean():.3%} diverge"
     dd = np.abs(np.asarray(dep_x) - np.asarray(dep_p))

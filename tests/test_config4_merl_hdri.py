@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings, native
-from vrenderer_pathtracer_tpu.ops.brdf import TABLE_SIZE, lookup_brdf
+from vrenderer_pathtracer import Renderer, RenderSettings, native
+from vrenderer_pathtracer.ops.brdf import TABLE_SIZE, lookup_brdf
 
 
 @pytest.fixture(scope="module")
@@ -125,8 +125,7 @@ def test_nonfinite_env_texel_cannot_poison_never_miss_paths():
     r = Renderer(
         32, 32,
         settings=RenderSettings(samples_per_pass=2, bounces=1,
-                                use_example_sphere=True,
-                                radiance_kernel="xla"),
+                                use_example_sphere=True),
     )
     r.load_hdr(np.full((8, 16, 3), np.inf, np.float32))
     img, depth = r.render_frames(1)

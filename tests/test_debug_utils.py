@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.utils import assert_finite_tree, checked
+from vrenderer_pathtracer.utils import assert_finite_tree, checked
 
 
 def test_checked_passes_clean_fn():
@@ -20,10 +20,10 @@ def test_checked_catches_nan():
 
 def test_checked_render_pass_is_finite():
     """The shading path produces no NaN/Inf on the golden config."""
-    from vrenderer_pathtracer_tpu.config import RenderSettings
-    from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-    from vrenderer_pathtracer_tpu.render.integrator import render_pass
-    from vrenderer_pathtracer_tpu.scene.scene import Scene
+    from vrenderer_pathtracer.config import RenderSettings
+    from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+    from vrenderer_pathtracer.render.integrator import render_pass
+    from vrenderer_pathtracer.scene.scene import Scene
 
     S = RenderSettings(width=16, height=16, samples_per_pass=2, bounces=3,
                        use_cornell_box=True, has_hdr=False)
@@ -48,7 +48,7 @@ def test_metrics_logger_coercion(tmp_path):
 
     import numpy as np
 
-    from vrenderer_pathtracer_tpu.utils.metrics import MetricsLogger
+    from vrenderer_pathtracer.utils.metrics import MetricsLogger
 
     path = tmp_path / "m.jsonl"
     with MetricsLogger(str(path)) as log:

@@ -11,7 +11,7 @@ import zlib
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu import native
+from vrenderer_pathtracer import native
 
 
 def test_exr_write_read_roundtrip(tmp_path):

@@ -18,7 +18,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.native import load_exr, write_exr
+from vrenderer_pathtracer.native import load_exr, write_exr
 
 TOOL_SRC = pathlib.Path(__file__).parent / "tools" / "exr_tool.cpp"
 

@@ -13,7 +13,7 @@ import zlib
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.native import load_fbx, load_mesh_file
+from vrenderer_pathtracer.native import load_fbx, load_mesh_file
 
 
 class _W:
@@ -227,8 +227,8 @@ def test_fbx_renders_through_pipeline(tmp_path):
     """The imported mesh goes through SBVH + packet traversal cleanly."""
     import jax.numpy as jnp
 
-    from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-    from vrenderer_pathtracer_tpu.accel.traverse import traverse
+    from vrenderer_pathtracer.accel.mesh import pack_mesh
+    from vrenderer_pathtracer.accel.traverse import traverse
 
     p = tmp_path / "quad.fbx"
     _write_quad_fbx(p)

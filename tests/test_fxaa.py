@@ -4,7 +4,7 @@ local boundedness, and toggle wiring through the renderer."""
 import numpy as np
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.ops.fxaa import fxaa
+from vrenderer_pathtracer.ops.fxaa import fxaa
 
 
 def _staircase(h=48, w=48):
@@ -48,7 +48,7 @@ def test_output_locally_bounded():
 
 
 def test_renderer_toggle():
-    from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+    from vrenderer_pathtracer import Renderer, RenderSettings
 
     r = Renderer(32, 32, settings=RenderSettings(
         use_cornell_box=True, has_hdr=False, samples_per_pass=2, bounces=2))

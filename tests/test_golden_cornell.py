@@ -17,7 +17,7 @@ bounded amounts.
 import numpy as np
 import jax
 
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+from vrenderer_pathtracer import Renderer, RenderSettings
 from tests import reference_tracer as ref
 
 

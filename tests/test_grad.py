@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-from vrenderer_pathtracer_tpu.render.integrator import render_pass
-from vrenderer_pathtracer_tpu.scene.scene import Scene
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+from vrenderer_pathtracer.render.integrator import render_pass
+from vrenderer_pathtracer.scene.scene import Scene
 
 
 def _mean_radiance(scene, settings, camera=None, fc=0.1, fp=3.0, frame=1):
@@ -107,9 +107,9 @@ def test_grad_wrt_camera_mesh_scene_finite_nonzero():
     shade_mesh_hit, so d(radiance)/d(origin) is nonzero on a mesh-only
     view (VERDICT round-3 #5: mesh-scene camera/albedo training path)."""
     from tests.test_mesh_render import write_uv_sphere
-    from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-    from vrenderer_pathtracer_tpu.native import load_obj
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.accel.mesh import pack_mesh
+    from vrenderer_pathtracer.native import load_obj
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
     import tempfile
     import os as _os

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.ops.intersect import (
+from vrenderer_pathtracer.ops.intersect import (
     INF,
     intersect_spheres,
     intersect_triangles,

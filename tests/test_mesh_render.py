@@ -8,7 +8,7 @@ and renders it inside the Cornell box — checking the mesh is actually visible
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+from vrenderer_pathtracer import Renderer, RenderSettings
 
 
 def write_uv_sphere(path, radius=12.0, n_theta=12, n_phi=18):

@@ -1,8 +1,8 @@
 """SBVH + traversal tests: invariants, brute-force oracle, loaders, grads.
 
 SURVEY §4 test pyramid items: SBVH invariants (every triangle reachable,
-child AABBs valid), traversal vs an all-triangles oracle (the TPU analog of
-the reference's dual-backend cross-check), OBJ loader behavior parity
+child AABBs valid), traversal vs an all-triangles oracle (our analog of the
+reference's dual-backend cross-check), OBJ loader behavior parity
 (centroid recentering, v-flip), and detached-hit differentiability.
 """
 
@@ -11,13 +11,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vrenderer_pathtracer_tpu import native
-from vrenderer_pathtracer_tpu.accel.mesh import MAX_LEAF, pack_mesh
-from vrenderer_pathtracer_tpu.accel.traverse import brute_force, mesh_hit, traverse
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.native import HostMesh
-from vrenderer_pathtracer_tpu.scene.scene import Scene, settings_for_scene
-from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+from vrenderer_pathtracer import native
+from vrenderer_pathtracer.accel.mesh import MAX_LEAF, pack_mesh
+from vrenderer_pathtracer.accel.traverse import brute_force, mesh_hit, traverse
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.native import HostMesh
+from vrenderer_pathtracer.scene.scene import Scene, settings_for_scene
+from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
 
 def _soup(n_tris=120, seed=0, extent=30.0):
@@ -186,7 +186,7 @@ def test_mesh_hit_differentiable():
     ray_o, ray_d = _aimed_rays(host, 64, seed=4, extent=40.0)
 
     def f(o):
-        from vrenderer_pathtracer_tpu.render.integrator import HitData
+        from vrenderer_pathtracer.render.integrator import HitData
 
         b = o.shape[0]
         prev = HitData(

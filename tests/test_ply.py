@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.native import load_mesh_file, load_obj, load_ply
+from vrenderer_pathtracer.native import load_mesh_file, load_obj, load_ply
 from tests.test_mesh_render import write_uv_sphere
 
 
@@ -142,7 +142,7 @@ def test_dispatch_and_errors(sphere, tmp_path):
 
 
 def test_renderer_loads_ply(sphere):
-    from vrenderer_pathtracer_tpu import Renderer, RenderSettings
+    from vrenderer_pathtracer import Renderer, RenderSettings
 
     pa, _, _ = sphere
     r = Renderer(32, 32, settings=RenderSettings(

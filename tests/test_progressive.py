@@ -8,8 +8,8 @@ reference's wall-clock-seeded RNG cannot offer (SURVEY §4.5).
 
 import numpy as np
 
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
-from vrenderer_pathtracer_tpu.render.progressive import (
+from vrenderer_pathtracer import Renderer, RenderSettings
+from vrenderer_pathtracer.render.progressive import (
     ProgressiveScheduler,
     restore_checkpoint,
     save_checkpoint,

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.core import rng
+from vrenderer_pathtracer.core import rng
 from tests import reference_tracer as ref
 
 # Known-answer tests from the Random123 distribution (threefry2x32, 20 rounds):

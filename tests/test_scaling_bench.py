@@ -6,11 +6,12 @@ rays/s-vs-device-count numbers; these tests run its worker in-process on
 well-formed and the weak-scaling workload actually scales the pixel count.
 """
 
+import pathlib
 import sys
 
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 from bench_scaling import _worker  # noqa: E402
 
 

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-from vrenderer_pathtracer_tpu.parallel.sharding import (
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+from vrenderer_pathtracer.parallel.sharding import (
     TrainParams,
     make_render_mesh,
     replicate,
@@ -21,8 +21,8 @@ from vrenderer_pathtracer_tpu.parallel.sharding import (
     sharded_render_step,
     sharded_train_step,
 )
-from vrenderer_pathtracer_tpu.render.integrator import render_pass
-from vrenderer_pathtracer_tpu.scene.scene import Scene
+from vrenderer_pathtracer.render.integrator import render_pass
+from vrenderer_pathtracer.scene.scene import Scene
 
 from tests.conftest import cpu_devices
 
@@ -170,7 +170,7 @@ def test_dryrun_multichip_entrypoint():
 def test_renderer_with_device_mesh():
     """The Renderer facade runs its progressive loop through shard_map and
     matches the single-device renderer (tile sharding is bitwise)."""
-    from vrenderer_pathtracer_tpu import Renderer
+    from vrenderer_pathtracer import Renderer
 
     mesh = make_render_mesh(n_tiles=4, n_samples=2, devices=cpu_devices()[:8])
     r_sharded = Renderer(32, 16, settings=SETTINGS, device_mesh=mesh)
@@ -268,7 +268,7 @@ def test_sharded_opt_step_adam():
     replicated and finite."""
     import optax
 
-    from vrenderer_pathtracer_tpu.parallel.sharding import sharded_opt_step
+    from vrenderer_pathtracer.parallel.sharding import sharded_opt_step
 
     settings = RenderSettings(
         width=32, height=32, samples_per_pass=2, bounces=2,
@@ -279,9 +279,9 @@ def test_sharded_opt_step_adam():
     mesh = make_render_mesh(n_tiles=4, n_samples=1, devices=cpu_devices()[:4])
 
     # Target: render with TRUE params; start perturbed.
-    from vrenderer_pathtracer_tpu.core.camera import generate_rays, pixel_ids
+    from vrenderer_pathtracer.core.camera import generate_rays, pixel_ids
     rgb, _ = render_pass(
-        scene, settings.replace(radiance_kernel="xla"),
+        scene, settings,
         *generate_rays(cam, 32, 32), pixel_ids(32, 32), jnp.uint32(1),
         jnp.float32(0.1), jnp.float32(3.0))
     target = shard_pixels(mesh, rgb)
@@ -309,7 +309,7 @@ def test_sharded_deferred_opt_step_env_map():
     matches the single-device jax.grad, and adam recovers a perturbed map."""
     import optax
 
-    from vrenderer_pathtracer_tpu.parallel.sharding import (
+    from vrenderer_pathtracer.parallel.sharding import (
         DeferredParams, sharded_deferred_opt_step)
 
     rng = np.random.default_rng(11)
@@ -318,14 +318,14 @@ def test_sharded_deferred_opt_step_env_map():
         width=32, height=32, samples_per_pass=2, bounces=2,
         use_cornell_box=False, has_hdr=True,
     )
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
     scene = Scene(spheres=build_sphere_set(False), hdr=hdr_true)
     cam = Camera.default()
     mesh = make_render_mesh(n_tiles=4, n_samples=1, devices=cpu_devices()[:4])
 
     rgb, _ = render_pass(
-        scene, settings.replace(radiance_kernel="xla"),
+        scene, settings,
         *generate_rays(cam, 32, 32), pixel_ids(32, 32), jnp.uint32(1),
         jnp.float32(0.1), jnp.float32(3.0))
     target = shard_pixels(mesh, rgb)
@@ -349,7 +349,7 @@ def test_sharded_deferred_opt_step_env_map():
     def loss_single(h):
         s = scene._replace(hdr=h)
         out, _ = render_pass(
-            s, settings.replace(radiance_kernel="xla"),
+            s, settings,
             *generate_rays(cam, 32, 32), pixel_ids(32, 32), jnp.uint32(5),
             jnp.float32(0.1), jnp.float32(3.0))
         return jnp.sum((out - rgb) ** 2) / (settings.n_pixels * 3)
@@ -371,9 +371,9 @@ def test_sharded_compact_waves_matches_single_device():
     gather-scatter machinery inside each shard must reproduce the
     unsharded compact render (guards the config-5 sharded path)."""
     from tests.test_mesh_render import write_uv_sphere
-    from vrenderer_pathtracer_tpu.accel.mesh import pack_mesh
-    from vrenderer_pathtracer_tpu.native import load_obj
-    from vrenderer_pathtracer_tpu.scene.spheres import build_sphere_set
+    from vrenderer_pathtracer.accel.mesh import pack_mesh
+    from vrenderer_pathtracer.native import load_obj
+    from vrenderer_pathtracer.scene.spheres import build_sphere_set
     import tempfile
     import os
 
@@ -384,7 +384,7 @@ def test_sharded_compact_waves_matches_single_device():
                   hdr=jnp.full((8, 16, 3), 0.4, jnp.float32))
     settings = RenderSettings(
         width=32, height=16, samples_per_pass=4, bounces=2,
-        use_cornell_box=False, has_mesh=True, radiance_kernel="xla",
+        use_cornell_box=False, has_mesh=True,
         compact_waves=True)
 
     cam = Camera.default()

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vrenderer_pathtracer_tpu.config import RenderSettings
-from vrenderer_pathtracer_tpu.core.camera import Camera, generate_rays, pixel_ids
-from vrenderer_pathtracer_tpu.ops.envmap import sample_env_bilinear, sample_env_nearest
-from vrenderer_pathtracer_tpu.ops.texture import fetch_bilinear, fetch_nearest
-from vrenderer_pathtracer_tpu.render.integrator import render_pass
-from vrenderer_pathtracer_tpu.scene.scene import Scene
+from vrenderer_pathtracer.config import RenderSettings
+from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
+from vrenderer_pathtracer.ops.envmap import sample_env_bilinear, sample_env_nearest
+from vrenderer_pathtracer.ops.texture import fetch_bilinear, fetch_nearest
+from vrenderer_pathtracer.render.integrator import render_pass
+from vrenderer_pathtracer.scene.scene import Scene
 
 
 def test_bilinear_matches_nearest_at_texel_centers():

@@ -8,7 +8,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vrenderer_pathtracer_tpu.ops import texture as tex_ops
+from vrenderer_pathtracer.ops import texture as tex_ops
 
 
 def _maps(rng, shapes):

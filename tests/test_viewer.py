@@ -9,8 +9,8 @@ import io
 
 import numpy as np
 
-from vrenderer_pathtracer_tpu import Renderer, RenderSettings
-from vrenderer_pathtracer_tpu.view import TerminalViewer
+from vrenderer_pathtracer import Renderer, RenderSettings
+from vrenderer_pathtracer.view import TerminalViewer
 
 SETTINGS = RenderSettings(
     use_cornell_box=True, has_hdr=False, samples_per_pass=1, bounces=2)
@@ -40,7 +40,7 @@ def test_orbit_keys_restart_accumulation():
     v.step(keys=["right"])
     # Camera moved by the reference drag constant * ORBIT_PX px and the
     # progressive state restarted (clearBuffer semantics).
-    from vrenderer_pathtracer_tpu.view import ORBIT_PX
+    from vrenderer_pathtracer.view import ORBIT_PX
 
     assert np.isclose(float(r.camera.yaw) - yaw0,
                       r.camera.DRAG_RAD_PER_PX * ORBIT_PX)
@@ -76,7 +76,7 @@ def test_fresnel_keys_update_sliders():
 
 
 def test_cli_view_headless(capsys):
-    from vrenderer_pathtracer_tpu.cli import main
+    from vrenderer_pathtracer.cli import main
 
     rc = main([
         "view", "--cornell", "--width", "16", "--height", "16",
@@ -93,7 +93,7 @@ def test_mouse_drag_orbits_with_reference_constant():
     """SGR mouse drags map to the reference's drag semantics
     (src/NGLSceneMouseControls.cpp): LMB yaw(-diffx*rad/px) /
     pitch(diffy*rad/px), RMB moveForward(diffY); release ends the drag."""
-    from vrenderer_pathtracer_tpu.view import CELL_PX_X, CELL_PX_Y, TerminalViewer
+    from vrenderer_pathtracer.view import CELL_PX_X, CELL_PX_Y, TerminalViewer
 
     v, r, _ = _viewer()
     ev = TerminalViewer._parse_sgr_mouse("32;10;5M")   # motion, LMB held
