@@ -70,6 +70,9 @@ def timed(fn, n):
     return first, (time.perf_counter() - t0) / n * 1e3
 
 
+KERNEL = 'name = "bvh_traverse"'  # the Triton kernel in a lowered program
+
+
 def report(phase, what, first_s, ms, dev):
     log(f"  {phase}.{what}: compile+first {first_s:.3f} s, steady "
         f"{ms:.3f} ms, peak_bytes_in_use {peak_bytes(dev)}")
@@ -204,16 +207,23 @@ def phase_config5(dev, assets, w=1920, h=1080):
     from vrenderer_pathtracer.render.integrator import render_pass
     from vrenderer_pathtracer.render.progressive import (
         restore_checkpoint, save_checkpoint)
+    from vrenderer_pathtracer.render.renderer import _render_step
 
     log(f"phase config5: Renderer({w}, {h}), 2 spp, 4 bounces, FXAA, MERL, "
         "remat_bounces")
     t0 = time.perf_counter()
     r = config5_renderer(w, h, assets)
     log(f"  config5.load_assets: {time.perf_counter() - t0:.3f} s "
-        f"(traversal={r.settings.traversal}, "
-        f"{int(r.scene.mesh.tri_count)} leaf slots)")
+        f"({int(r.scene.mesh.tri_count)} leaf slots)")
     first, pass_ms = timed(lambda: r.render()[0], 3)
     report("config5", "render_pass", first, pass_ms, dev)
+    hlo = _render_step.lower(
+        r.scene, r.camera, r._accum, jnp.uint32(r.frame), r.fresnel_coef,
+        r.fresnel_pow, (r.fxaa_subpix_quality, r.fxaa_edge_threshold),
+        r.settings, r.seed).as_text()
+    check("config5.search_is_kernel", hlo.count(KERNEL) > 0,
+          f"the pass's program holds {hlo.count(KERNEL)} Triton traversal "
+          "call(s)")
 
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(r, pathlib.Path(tmp) / "ckpt")
@@ -289,16 +299,17 @@ def phase_config5(dev, assets, w=1920, h=1080):
                                         and m["grad_global_norm"] > 0),
           f"loss {float(m['loss']):.6g}, |g| {float(m['grad_global_norm']):.6g}"
           " > 0")
-    return pass_ms
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the traversal kernel vs its references
 # ---------------------------------------------------------------------------
 
-def bounce_wave(mesh, ray_o, ray_d, slot, t, seed=0):
-    """One cosine-sampled bounce from each primary hit; misses get a zero
-    search bound (dead lanes, as the integrator marks them)."""
+def bounce_wave(mesh, ray_o, ray_d, slot, t, inward=False, seed=0):
+    """One cosine-sampled bounce from each hit, about the normal that faces
+    the incoming ray (``inward``: about the opposite one, from just inside
+    the surface, as a ray that enters the mesh); misses get a zero search
+    bound (dead lanes, as the integrator marks them)."""
     from vrenderer_pathtracer.ops.shading import ORIGIN_OFFSET, cosine_hemisphere
 
     hit = slot >= 0
@@ -306,6 +317,8 @@ def bounce_wave(mesh, ray_o, ray_d, slot, t, seed=0):
     n = jnp.cross(mesh.tri_e1[s], mesh.tri_e2[s])
     n = n / jnp.maximum(jnp.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
     n = jnp.where(jnp.sum(n * ray_d, -1, keepdims=True) > 0, -n, n)
+    if inward:
+        n = -n
     p = ray_o + ray_d * jnp.where(hit, t, 0.0)[:, None]
     k1, k2 = jax.random.split(jax.random.key(seed))
     u1 = jax.random.uniform(k1, hit.shape)
@@ -340,80 +353,91 @@ def brute_chunks(mesh, o, d, t_max):
     return jax.lax.map(lambda x: brute_force(mesh, *x), (o, d, t_max))
 
 
-def phase_traversal(dev, assets, c5_ms, w=1920, h=1080, n_brute=4096):
+def compare_brute(name, mesh, order, wave, got, n_brute, seed=1):
+    """The kernel against brute force on distinct sampled rays: half drawn
+    from the kernel's hits (so hits are well represented at a low hit
+    rate), half from all live lanes."""
+    o, d, tm = wave
+    rng = np.random.default_rng(seed)
+    hits = np.flatnonzero(np.asarray(got[0]) >= 0)
+    live = np.flatnonzero(np.asarray(tm) > 0)
+    pick = np.unique(np.concatenate([
+        rng.choice(pool, min(n_brute // 2, len(pool)), replace=False)
+        for pool in (hits, live) if len(pool)]))
+    pick = pick[:len(pick) // 32 * 32]
+    if not len(pick):
+        check(f"traversal.{name}.brute_hit_exact", False, "no live rays")
+    ref = brute_chunks(mesh, o[pick].reshape(-1, 32, 3),
+                       d[pick].reshape(-1, 32, 3), tm[pick].reshape(-1, 32))
+    sb, tb = (np.asarray(x).reshape(-1) for x in ref)
+    sk, tk = np.asarray(got[0])[pick], np.asarray(got[1])[pick]
+    check(f"traversal.{name}.brute_hit_exact", bool(((sk >= 0) == (sb >= 0))
+                                                    .all()),
+          f"{len(pick)} distinct sampled rays, hit/miss identical "
+          f"({int((sb >= 0).sum())} distinct hit rays)")
+    both = (sk >= 0) & (sb >= 0)
+    rel = np.abs(tk[both] - tb[both]) / tb[both]
+    check(f"traversal.{name}.brute_t", float(rel.max(initial=0)) <= 1e-5,
+          f"max |dt|/t {float(rel.max(initial=0)):.3g} (bound 1e-05)")
+    check(f"traversal.{name}.brute_tri",
+          bool((order[sk[both]] == order[sb[both]]).all()),
+          "same original triangle on every hit")
+
+
+def phase_traversal(dev, assets, w=1920, h=1080, n_brute=4096):
     from vrenderer_pathtracer import native
     from vrenderer_pathtracer.accel.mesh import pack_from_bvh
-    from vrenderer_pathtracer.accel.traverse import traverse
+    from vrenderer_pathtracer.accel.traverse import nearest_hit, traverse
     from vrenderer_pathtracer.accel.triton_traverse import (
         traverse_triton as kernel)
     from vrenderer_pathtracer.core.camera import Camera, generate_rays
 
     log(f"phase traversal: Triton kernel vs XLA traverse on the config-5 mesh, "
-        f"{w}x{h} primaries + one bounce wave")
+        f"{w}x{h} primaries from z=150 (the config-5 camera) and z=30, and "
+        "one bounce wave from the hits of each")
     host = native.load_obj(assets[0])
     bvh = native.build_sbvh(host.verts, host.tris)
     order = np.asarray(bvh.tri_order)
     mesh = jax.device_put(pack_from_bvh(host, bvh), dev)
     log(f"  mesh: {len(host.tris)} triangles, {bvh.nodes_i.shape[0]} nodes, "
         f"depth {bvh.max_depth}")
-    ray_o, ray_d = generate_rays(Camera.default(), w, h)
     t_max = jnp.full((w * h,), 1e20, jnp.float32)
+    hlo = jax.jit(nearest_hit).lower(mesh, *generate_rays(
+        Camera.default(), w, h), t_max).as_text()
+    check("traversal.dispatch", hlo.count(KERNEL) == 1
+          and "stablehlo.while" not in hlo,
+          "nearest_hit lowered for this device: the Triton kernel, no XLA "
+          "loop")
     xla = jax.jit(traverse)
-    waves = {"primary": (ray_o, ray_d, t_max)}
-    times = {}
-    for name in ("primary", "bounce"):
-        if name == "bounce":
-            slot, t = kernel(mesh, ray_o, ray_d, t_max)
-            waves["bounce"] = bounce_wave(mesh, ray_o, ray_d, slot, t)
+    # (name, camera z, bounce from the hits of, inward)
+    plan = [("primary", 150.0, None, False), ("bounce", None, "primary", False),
+            ("primary_z30", 30.0, None, False),
+            ("inward_z30", None, "primary_z30", True)]
+    waves, results, times = {}, {}, {}
+    for name, z, parent, inward in plan:
+        if parent is None:
+            cam = Camera.default()._replace(
+                origin=jnp.asarray([0.0, 0.0, z], jnp.float32))
+            waves[name] = (*generate_rays(cam, w, h), t_max)
+        else:
+            waves[name] = bounce_wave(mesh, *waves[parent][:2],
+                                      *results[parent], inward=inward)
         o, d, tm = waves[name]
         live = int((np.asarray(tm) > 0).sum())
         f_k, ms_k = timed(lambda: kernel(mesh, o, d, tm), 5)
         f_x, ms_x = timed(lambda: xla(mesh, o, d, tm), 5)
         times[name] = (ms_k, ms_x)
-        log(f"  traversal.{name}: {o.shape[0]} rays ({live} live): kernel "
-            f"{ms_k:.3f} ms (compile+first {f_k:.3f} s), XLA traverse "
-            f"{ms_x:.3f} ms (compile+first {f_x:.3f} s), peak_bytes_in_use "
+        got = results[name] = kernel(mesh, o, d, tm)
+        n_hit = int((np.asarray(got[0]) >= 0).sum())
+        log(f"  traversal.{name}: {o.shape[0]} rays, {live} live, {n_hit} "
+            f"hit ({n_hit / max(live, 1):.2%} of live): kernel {ms_k:.3f} ms "
+            f"(compile+first {f_k:.3f} s), XLA traverse {ms_x:.3f} ms "
+            f"(compile+first {f_x:.3f} s), peak_bytes_in_use "
             f"{peak_bytes(dev)}")
-        got = kernel(mesh, o, d, tm)
         compare_waves(name, order, got, xla(mesh, o, d, tm))
-
-        # Half the sample from the kernel's hits, so hits are well
-        # represented at a low hit rate; half from all live lanes.
-        rng = np.random.default_rng(1)
-        hits = np.flatnonzero(np.asarray(got[0]) >= 0)
-        live = np.flatnonzero(np.asarray(tm) > 0)
-        pick = np.concatenate([
-            rng.choice(pool, n, replace=len(pool) < n)
-            for pool, n in ((hits, n_brute // 2), (live, n_brute // 2))
-            if len(pool)])
-        pick = pick[:len(pick) // 32 * 32]
-        ref = brute_chunks(mesh, o[pick].reshape(-1, 32, 3),
-                           d[pick].reshape(-1, 32, 3),
-                           tm[pick].reshape(-1, 32))
-        ref = (ref[0].reshape(-1), ref[1].reshape(-1))
-        sub = (got[0][pick], got[1][pick])
-        sk, sb = np.asarray(sub[0]), np.asarray(ref[0])
-        check(f"traversal.{name}.brute_hit_exact",
-              bool(((sk >= 0) == (sb >= 0)).all()),
-              f"{len(pick)} sampled rays, hit/miss identical "
-              f"({int((sb >= 0).sum())} hits)")
-        both = (sk >= 0) & (sb >= 0)
-        rel = np.abs(np.asarray(sub[1])[both] - np.asarray(ref[1])[both]) \
-            / np.asarray(ref[1])[both]
-        check(f"traversal.{name}.brute_t", float(rel.max(initial=0)) <= 1e-5,
-              f"max |dt|/t {float(rel.max(initial=0)):.3g} (bound 1e-05)")
-        check(f"traversal.{name}.brute_tri",
-              bool((order[sk[both]] == order[sb[both]]).all()),
-              "same original triangle on every hit")
-
-    log("  config-5 pass with traversal='xla' (same renderer API)")
-    r = config5_renderer(w, h, assets, CONFIG5.replace(traversal="xla"))
-    first, ms_xla = timed(lambda: r.render()[0], 3)
-    report("traversal", "config5_pass_xla", first, ms_xla, dev)
-    log(f"  traversal.decision: config-5 pass kernel {c5_ms:.3f} ms vs xla "
-        f"{ms_xla:.3f} ms; primary kernel {times['primary'][0]:.3f} ms vs "
-        f"{times['primary'][1]:.3f} ms; bounce kernel "
-        f"{times['bounce'][0]:.3f} ms vs {times['bounce'][1]:.3f} ms")
+        compare_brute(name, mesh, order, waves[name], got, n_brute)
+    log("  traversal.times (kernel vs XLA traverse, ms): " + "; ".join(
+        f"{k} {a:.3f} vs {b:.3f}" for k, (a, b) in times.items()))
     run_gpu_tests()
 
 
@@ -464,12 +488,17 @@ def phase_cpu_parity(dev, assets, w=192, h=108):
                                      jnp.float32(0.1), jnp.float32(3.0))
                 return jnp.mean(rgb ** 2)
 
-            g = np.asarray(jax.jit(jax.grad(loss_fn))(
-                r.scene.hdr, r.scene, r.camera))
+            grad = jax.jit(jax.grad(loss_fn))
+            g = np.asarray(grad(r.scene.hdr, r.scene, r.camera))
             out[where.platform] = (img, g)
-            log(f"  cpu_parity.{where.platform}: traversal "
-                f"{r.settings.traversal}, render + env grad "
+            n = grad.lower(r.scene.hdr, r.scene, r.camera).as_text().count(
+                KERNEL)
+            log(f"  cpu_parity.{where.platform}: {n} Triton traversal "
+                f"call(s) in the program, render + env grad "
                 f"{time.perf_counter() - t0:.3f} s")
+            check(f"cpu_parity.{where.platform}.search",
+                  (n > 0) == (where.platform == "gpu"),
+                  "the kernel on the GPU, the XLA loop on the CPU")
     (img_d, g_d), (img_c, g_c) = out[dev.platform], out["cpu"]
     frac = (np.abs(img_d - img_c) > 1e-3).any(-1).mean()
     check("cpu_parity.image", frac <= 0.01,
@@ -550,10 +579,13 @@ def phase_sharded(devices, assets, size=1024, c5_size=(1920, 1080)):
             ddep = np.abs(np.asarray(depn) - np.asarray(dep1))
             # tests/test_sharding.py:92-95 bounds the share of differing
             # elements (1%) and, at 32x16, their size (0.05).  At full
-            # width a handful of samples flip between two compilations
-            # (e.g. hitting the light or not) and differ by up to the
-            # light's emission, so the size bound becomes a share: at most
-            # 0.1% of elements (and of depths) beyond it.
+            # width a few dozen isolated pixels flip one sample (hitting
+            # the light or not) between two compilations and differ by up
+            # to the light's emission: a one-device render with its
+            # samples chunked one at a time does the same, other pixels
+            # each frame (PERF.md, open questions).  So the size bound
+            # becomes a share: at most 0.1% of elements (and of depths)
+            # beyond it.
             check(f"sharded.{sname}.{lname}.render",
                   frac < 0.01 and big <= 1e-3 and (ddep > 5e-4).mean() <= 1e-3,
                   f"{frac:.4%} elements differ > 1e-5 (bound 1%), "
@@ -618,8 +650,8 @@ def main(argv=None) -> int:
         else:
             with jax.default_device(dev):
                 phase_cornell(dev)
-                c5_ms = phase_config5(dev, assets)
-                phase_traversal(dev, assets, c5_ms)
+                phase_config5(dev, assets)
+                phase_traversal(dev, assets)
                 phase_cpu_parity(dev, assets)
     print(json.dumps({"ok": True, "device": {
         "platform": dev.platform, "kind": dev.device_kind,

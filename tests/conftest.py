@@ -41,3 +41,23 @@ def gpu_device():
     if not devices:
         pytest.skip("needs a GPU (run on the card: python -m pytest -m gpu)")
     return devices[0]
+
+
+@pytest.fixture
+def kernel_in_interpreter(monkeypatch):
+    """A function that, once called, routes the integrator's mesh search
+    (accel/traverse.py ``nearest_hit``) to the Triton kernel in the Pallas
+    interpreter for the rest of the test: how CPU tests reach the kernel
+    through ``render_pass``."""
+
+    def enable():
+        import functools
+
+        from vrenderer_pathtracer.accel import traverse, triton_traverse
+
+        monkeypatch.setattr(
+            traverse, "nearest_hit",
+            functools.partial(triton_traverse.traverse_triton,
+                              interpret=True))
+
+    return enable

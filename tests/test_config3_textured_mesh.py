@@ -55,18 +55,7 @@ def test_diffuse_map_colors_mesh(sphere_obj):
     assert abs(cp[0] - cp[1]) < 0.1 * cp[0]  # plain mesh is neutral
 
 
-def _interpreted_kernel(monkeypatch):
-    """Route traversal="triton" to the kernel in interpret mode (CPU)."""
-    import functools
-
-    from vrenderer_pathtracer.accel import triton_traverse
-
-    monkeypatch.setattr(
-        triton_traverse, "traverse_triton",
-        functools.partial(triton_traverse.traverse_triton, interpret=True))
-
-
-def test_captured_attrs_wavefront_parity(sphere_obj, monkeypatch):
+def test_captured_attrs_wavefront_parity(sphere_obj, kernel_in_interpreter):
     """The wavefront with the Triton traversal kernel matches the XLA
     traversal on a diffuse+normal+specular-mapped mesh scene under the usual
     cross-program outlier contract (kernel in interpret mode on CPU)."""
@@ -78,7 +67,6 @@ def test_captured_attrs_wavefront_parity(sphere_obj, monkeypatch):
     from vrenderer_pathtracer.scene.scene import Scene
     from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
-    _interpreted_kernel(monkeypatch)
     rng = np.random.default_rng(9)
     nmap = jnp.asarray((rng.uniform(0, 1, (16, 16, 3)) * 0.3
                         + (0.35, 0.35, 0.7)).astype(np.float32))
@@ -94,16 +82,16 @@ def test_captured_attrs_wavefront_parity(sphere_obj, monkeypatch):
     ro, rd = generate_rays(cam, 32, 32)
     ids = pixel_ids(32, 32)
     args = (jnp.uint32(1), jnp.float32(0.1), jnp.float32(3.0))
-    rgb_a, dep_a = render_pass(scene, settings.replace(traversal="xla"),
-                               ro, rd, ids, *args)
-    rgb_b, dep_b = render_pass(scene, settings.replace(traversal="triton"),
-                               ro, rd, ids, *args)
+    rgb_a, dep_a = render_pass(scene, settings, ro, rd, ids, *args)
+    kernel_in_interpreter()
+    rgb_b, dep_b = render_pass(scene, settings, ro, rd, ids, *args)
     d = np.abs(np.asarray(rgb_a) - np.asarray(rgb_b)).max(axis=-1)
     assert (d > 1e-3).mean() <= 0.02, f"{(d > 1e-3).mean():.3%} diverge"
     assert d[d <= 1e-3].mean() <= 1e-4
 
 
-def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj, monkeypatch):
+def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj,
+                                                 kernel_in_interpreter):
     """render_pass with the Triton traversal kernel matches the
     XLA-traversal render on a normal-mapped mesh under the usual
     cross-program bounds (kernel in interpret mode on CPU)."""
@@ -115,7 +103,6 @@ def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj, monkeypatch):
     from vrenderer_pathtracer.scene.scene import Scene
     from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
-    _interpreted_kernel(monkeypatch)
     rng = np.random.default_rng(5)
     nmap = jnp.asarray((rng.uniform(0, 1, (16, 16, 3)) * 0.3
                         + (0.35, 0.35, 0.7)).astype(np.float32))
@@ -129,10 +116,9 @@ def test_pre_tiled_pallas_matches_xla_traversal(sphere_obj, monkeypatch):
     ro, rd = generate_rays(cam, 32, 32)
     ids = pixel_ids(32, 32)
     args = (jnp.uint32(1), jnp.float32(0.1), jnp.float32(3.0))
-    rgb_x, dep_x = render_pass(scene, base.replace(traversal="xla"),
-                               ro, rd, ids, *args)
-    rgb_p, dep_p = render_pass(scene, base.replace(traversal="triton"),
-                               ro, rd, ids, *args)
+    rgb_x, dep_x = render_pass(scene, base, ro, rd, ids, *args)
+    kernel_in_interpreter()
+    rgb_p, dep_p = render_pass(scene, base, ro, rd, ids, *args)
     d = np.abs(np.asarray(rgb_x) - np.asarray(rgb_p)).max(axis=-1)
     assert (d > 1e-3).mean() <= 0.02, f"{(d > 1e-3).mean():.3%} diverge"
     dd = np.abs(np.asarray(dep_x) - np.asarray(dep_p))

@@ -118,7 +118,7 @@ def test_grad_wrt_camera_mesh_scene_finite_nonzero():
     mesh = pack_mesh(load_obj(p))
     settings = RenderSettings(
         width=24, height=24, use_cornell_box=True, bounces=2,
-        samples_per_pass=2, has_hdr=False, has_mesh=True, traversal="xla")
+        samples_per_pass=2, has_hdr=False, has_mesh=True)
     scene = Scene(spheres=build_sphere_set(True), mesh=mesh)
 
     def loss(origin):

@@ -7,8 +7,6 @@ compared by hit/miss, hit distance and ORIGINAL triangle id
 leaves, so two correct traversals may report different slots for one hit.
 """
 
-import functools
-
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -137,37 +135,34 @@ def test_kernel_dead_lanes_are_skipped():
     assert (np.asarray(slot)[1::2] >= 0).any()
 
 
-def test_gradient_through_render_pass_with_kernel(monkeypatch):
-    """jax.grad flows through render_pass with traversal="triton" (the
-    kernel's inputs are detached; attributes are recomputed outside it),
-    and matches the XLA-traversal gradient w.r.t. the env map."""
-    from vrenderer_pathtracer.accel import triton_traverse
+def test_gradient_through_render_pass_with_kernel(kernel_in_interpreter):
+    """jax.grad flows through render_pass with the kernel as the mesh
+    search (its inputs are detached; attributes are recomputed outside
+    it), and matches the XLA-traversal gradient w.r.t. the env map."""
     from vrenderer_pathtracer.config import RenderSettings
     from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
     from vrenderer_pathtracer.render.integrator import render_pass
     from vrenderer_pathtracer.scene.scene import Scene
     from vrenderer_pathtracer.scene.spheres import build_sphere_set
 
-    monkeypatch.setattr(
-        triton_traverse, "traverse_triton",
-        functools.partial(triton_traverse.traverse_triton, interpret=True))
     host, mesh, _ = _packed(_soup(200, seed=4, extent=15.0))
     hdr = jnp.asarray(np.random.default_rng(0).uniform(0.2, 1.5, (8, 16, 3)),
                       jnp.float32)
     scene = Scene(spheres=build_sphere_set(False), mesh=mesh, hdr=hdr)
-    base = RenderSettings(width=16, height=16, samples_per_pass=2, bounces=2,
-                          has_mesh=True)
+    settings = RenderSettings(width=16, height=16, samples_per_pass=2,
+                              bounces=2, has_mesh=True)
     cam = Camera.default()._replace(origin=jnp.asarray([0.0, 0.0, 60.0]))
     ro, rd = generate_rays(cam, 16, 16)
     ids = pixel_ids(16, 16)
 
-    def loss(env, settings):
+    def loss(env):
         rgb, _ = render_pass(scene._replace(hdr=env), settings, ro, rd, ids,
                              jnp.uint32(1), jnp.float32(0.1), jnp.float32(3.0))
         return jnp.mean(rgb ** 2)
 
-    l_k, g_k = jax.value_and_grad(loss)(hdr, base.replace(traversal="triton"))
-    l_x, g_x = jax.value_and_grad(loss)(hdr, base.replace(traversal="xla"))
+    l_x, g_x = jax.value_and_grad(loss)(hdr)
+    kernel_in_interpreter()
+    l_k, g_k = jax.value_and_grad(loss)(hdr)
     assert np.isfinite(np.asarray(g_k)).all()
     assert float(jnp.abs(g_k).sum()) > 0.0
     np.testing.assert_allclose(float(l_k), float(l_x), rtol=1e-3)
@@ -192,11 +187,15 @@ def test_kernel_on_gpu_matches_traverse(gpu_device):
 
 @pytest.mark.gpu
 def test_render_pass_on_gpu_resolves_to_kernel(gpu_device):
-    from vrenderer_pathtracer.config import RenderSettings
-    from vrenderer_pathtracer.scene.scene import Scene, settings_for_scene
-    from vrenderer_pathtracer.scene.spheres import build_sphere_set
+    """On a GPU the integrator's mesh search compiles to the kernel, and
+    gives the kernel's answers."""
+    from vrenderer_pathtracer.accel.traverse import nearest_hit
 
-    _, mesh, _ = _packed(_soup(120, seed=11))
-    scene = jax.device_put(
-        Scene(spheres=build_sphere_set(False), mesh=mesh), gpu_device)
-    assert settings_for_scene(scene, RenderSettings()).traversal == "triton"
+    host, mesh, order = _packed(_soup(120, seed=11))
+    mesh = jax.device_put(mesh, gpu_device)
+    o, d, t_max = (jax.device_put(x, gpu_device)
+                   for x in _ray_set("tmax_clip", host))
+    search = jax.jit(nearest_hit)
+    assert 'name = "bvh_traverse"' in search.lower(mesh, o, d, t_max).as_text()
+    got = search(mesh, o, d, t_max)
+    _check(mesh, order, "tmax_clip", got, brute_force(mesh, o, d, t_max))

@@ -30,8 +30,7 @@ from jax import lax
 from vrenderer_pathtracer.accel.mesh import MAX_LEAF, STACK_DEPTH
 from vrenderer_pathtracer.config import RenderSettings
 from vrenderer_pathtracer.ops import texture as tex_ops
-from vrenderer_pathtracer.scene.scene import (
-    MeshData, Scene, device_platform, resolve_traversal)
+from vrenderer_pathtracer.scene.scene import MeshData, Scene
 from vrenderer_pathtracer.scene.spheres import BRDF, DIFF
 
 # Triangle-test epsilon (reference: 3e-10 CUDA / 3e-4 CL — the divergence
@@ -316,25 +315,20 @@ def shade_mesh_hit(scene: Scene, settings: RenderSettings, ray_o, ray_d, slot,
     )
 
 
-def _search_fn(scene: Scene, settings: RenderSettings):
-    """The traversal ``settings`` names.  An unresolved "auto" resolves
-    from where the mesh lives; inside a trace (no concrete arrays) that is
-    the XLA loop — resolve settings with ``settings_for_scene`` before
-    tracing to get the kernel."""
-    settings = resolve_traversal(settings, device_platform(scene.mesh))
-    if settings.traversal == "triton":
-        from vrenderer_pathtracer.accel import triton_traverse
+def _kernel_search(mesh: MeshData, ray_o, ray_d, t_max):
+    from vrenderer_pathtracer.accel import triton_traverse
 
-        search = triton_traverse.traverse_triton
-    elif settings.traversal == "xla":
-        search = traverse
-    else:
-        raise ValueError(f"unknown traversal {settings.traversal!r}")
-    if settings.sort_rays:
-        from vrenderer_pathtracer.accel.sorting import sorted_traverse
+    return triton_traverse.traverse_triton(mesh, ray_o, ray_d, t_max)
 
-        search = functools.partial(sorted_traverse, search)
-    return search
+
+def nearest_hit(mesh: MeshData, ray_o, ray_d, t_max):
+    """``(slot [B] int32, t [B])`` for the platform the program is compiled
+    for — the one place the program picks code by platform: the Triton
+    kernel (accel/triton_traverse.py) on a GPU, :func:`traverse` elsewhere.
+    The choice is made when the program is lowered, so it holds under a
+    caller's own ``jit``, ``grad`` and ``shard_map`` alike."""
+    return lax.platform_dependent(mesh, ray_o, ray_d, t_max,
+                                  cuda=_kernel_search, default=traverse)
 
 
 def mesh_search(scene: Scene, settings: RenderSettings, ray_o, ray_d, t_max):
@@ -342,7 +336,12 @@ def mesh_search(scene: Scene, settings: RenderSettings, ray_o, ray_d, t_max):
     one traversal entry point of the integrator.  Rays are stop-gradient'd
     (the winning slot is discrete); :func:`shade_mesh_hit` recomputes the
     hit attributes differentiably."""
-    slot, t = _search_fn(scene, settings)(
+    search = nearest_hit
+    if settings.sort_rays:
+        from vrenderer_pathtracer.accel.sorting import sorted_traverse
+
+        search = functools.partial(sorted_traverse, search)
+    slot, t = search(
         scene.mesh,
         lax.stop_gradient(ray_o),
         lax.stop_gradient(ray_d),

@@ -49,10 +49,6 @@ class RenderSettings:
     has_mesh: bool = False
     has_hdr: bool = True
     use_fxaa: bool = False
-    # BVH traversal: "auto" resolves (scene.settings_for_scene) to "triton"
-    # (per-ray stack kernel, accel/triton_traverse.py) for meshes on a GPU
-    # and to "xla" (lock-step while_loop, accel/traverse.py) elsewhere.
-    traversal: str = "auto"
     # Rematerialize each bounce in the backward pass (jax.checkpoint):
     # trades recompute FLOPs for per-bounce activation memory — needed for
     # high-res/high-spp gradient renders (config 5).

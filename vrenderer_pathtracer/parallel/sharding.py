@@ -40,8 +40,7 @@ from vrenderer_pathtracer.config import RenderSettings
 from vrenderer_pathtracer.core.camera import Camera, generate_rays, pixel_ids
 from vrenderer_pathtracer.ops.tonemap import tonemap
 from vrenderer_pathtracer.render.integrator import render_pass
-from vrenderer_pathtracer.scene.scene import (
-    Scene, device_platform, resolve_traversal, settings_for_scene)
+from vrenderer_pathtracer.scene.scene import Scene, settings_for_scene
 
 TILE_AXIS = "tiles"
 SAMPLE_AXIS = "samples"
@@ -76,14 +75,6 @@ def _check_divisible(settings: RenderSettings, mesh: Mesh):
             f"samples_per_pass={settings.samples_per_pass} not divisible by "
             f"{n_samp} sample shards"
         )
-
-
-def _resolve(mesh: Mesh, settings: RenderSettings,
-             scene: Optional[Scene]) -> RenderSettings:
-    """Resolve "auto" settings for the devices of ``mesh``."""
-    if scene is not None:
-        return settings_for_scene(scene, settings, where=mesh)
-    return resolve_traversal(settings, device_platform(mesh))
 
 
 def _shard_pass(scene, camera, frame, fresnel_coef, fresnel_pow,
@@ -139,9 +130,10 @@ def sharded_render_step(mesh: Mesh, settings: RenderSettings, seed: int = 0,
 
     Pass ``scene`` (the scene this step will render) to derive the
     ``has_*`` flags from its assets; without it the settings' own flags
-    hold.  Either way ``"auto"`` traversal resolves for ``mesh``'s devices.
+    hold.
     """
-    settings = _resolve(mesh, settings, scene)
+    if scene is not None:
+        settings = settings_for_scene(scene, settings)
     _check_divisible(settings, mesh)
     n_samp = mesh.shape[SAMPLE_AXIS]
     local_spp = max(settings.samples_per_pass // n_samp, 1)
@@ -273,7 +265,6 @@ def sharded_opt_step(mesh: Mesh, settings: RenderSettings, optimizer,
     momentum/Adam moments live on device.  Initialise with
     ``optimizer.init(jax.device_get(params))`` and ``replicate``.
     """
-    settings = _resolve(mesh, settings, None)
     _check_divisible(settings, mesh)
     n_samp = mesh.shape[SAMPLE_AXIS]
     local_spp = max(settings.samples_per_pass // n_samp, 1)
@@ -353,7 +344,8 @@ def sharded_deferred_opt_step(mesh: Mesh, settings: RenderSettings,
     fresnel_pow) -> (params', opt_state', metrics)``; gradients are
     pmean/psum-reduced over the mesh exactly as in the other train steps.
     """
-    settings = _resolve(mesh, settings, scene)
+    if scene is not None:
+        settings = settings_for_scene(scene, settings)
     _check_divisible(settings, mesh)
     n_samp = mesh.shape[SAMPLE_AXIS]
     local_spp = max(settings.samples_per_pass // n_samp, 1)
@@ -401,7 +393,6 @@ def sharded_train_step(mesh: Mesh, settings: RenderSettings, seed: int = 0,
     mesh axes (the gradient all-reduce overlaps the backward pass in XLA's
     schedule), followed by an SGD update computed redundantly per device.
     """
-    settings = _resolve(mesh, settings, None)
     _check_divisible(settings, mesh)
     n_samp = mesh.shape[SAMPLE_AXIS]
     local_spp = max(settings.samples_per_pass // n_samp, 1)

@@ -68,10 +68,8 @@ class Renderer:
         then run through the shard_map step with the scene replicated and
         pixels tile-sharded.  None = single-device execution."""
         base = settings or RenderSettings()
-        # Remember the user's requests so every scene mutation re-resolves
-        # them against the CURRENT scene (a stale early resolution would pin
-        # the XLA traversal before the mesh is loaded).
-        self._traversal_request = base.traversal
+        # Remember the user's request so every scene mutation re-resolves
+        # it against the CURRENT scene.
         self._compact_request = base.compact_waves
         # The measured compact-mode switch tightens capacity per camera;
         # remember the requested fraction to restore on scene/camera edits.
@@ -89,7 +87,7 @@ class Renderer:
         self.fxaa_edge_threshold = jnp.float32(0.166)
         self.frame = 1
         self._accum = None
-        self._sync_settings()  # resolve auto backends for the initial scene
+        self._sync_settings()  # flags for the initial scene
         self.clear_buffer()
 
     # -- state management ---------------------------------------------------
@@ -152,10 +150,7 @@ class Renderer:
     def _sync_settings(self):
         self.settings = settings_for_scene(
             self.scene,
-            self.settings.replace(
-                traversal=self._traversal_request,
-                compact_waves=self._compact_request,
-            ),
+            self.settings.replace(compact_waves=self._compact_request),
         )
 
     def _mutate(self, **scene_updates):

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import jax
 import jax.numpy as jnp
 
 from vrenderer_pathtracer.config import RenderSettings
@@ -59,39 +58,10 @@ class Scene(NamedTuple):
         return cls(spheres=build_sphere_set(settings.use_cornell_box), hdr=hdr)
 
 
-def device_platform(where) -> Optional[str]:
-    """The platform of the devices that hold ``where``: a pytree of device
-    arrays, or a ``jax.sharding.Mesh``.  None for tracers and host arrays,
-    or when the arrays span several platforms.  The one place the program
-    reads the platform it runs on."""
-    if isinstance(where, jax.sharding.Mesh):
-        platforms = {d.platform for d in where.devices.flat}
-    else:
-        try:
-            platforms = {d.platform for leaf in jax.tree.leaves(where)
-                         for d in leaf.devices()}
-        except (AttributeError, TypeError):  # tracer / numpy input
-            return None
-    return platforms.pop() if len(platforms) == 1 else None
-
-
-def resolve_traversal(settings: RenderSettings, platform: Optional[str]
-                      ) -> RenderSettings:
-    """Resolve ``traversal="auto"``: the Triton kernel
-    (accel/triton_traverse.py) for meshes on a GPU, the XLA lock-step loop
-    (accel/traverse.py) everywhere else."""
-    if settings.traversal != "auto":
-        return settings
-    gpu_mesh = settings.has_mesh and platform == "gpu"
-    return settings.replace(traversal="triton" if gpu_mesh else "xla")
-
-
-def settings_for_scene(scene: Scene, settings: RenderSettings,
-                       where=None) -> RenderSettings:
-    """Derive the ``has_*`` static flags from which assets are present, and
-    resolve the "auto" traversal from where the scene lives (``where``
-    overrides that: the device mesh a sharded step runs on)."""
-    settings = settings.replace(
+def settings_for_scene(scene: Scene, settings: RenderSettings
+                       ) -> RenderSettings:
+    """Derive the ``has_*`` static flags from which assets are present."""
+    return settings.replace(
         has_diffuse_map=scene.diffuse_map is not None,
         has_normal_map=scene.normal_map is not None,
         has_specular_map=scene.specular_map is not None,
@@ -99,5 +69,3 @@ def settings_for_scene(scene: Scene, settings: RenderSettings,
         has_mesh=scene.mesh is not None,
         has_hdr=scene.hdr is not None,
     )
-    return resolve_traversal(
-        settings, device_platform(scene if where is None else where))
